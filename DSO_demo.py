@@ -8,23 +8,22 @@ import os
 import numpy as np
 
 
-def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+def main(argv=None):
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--default_config", type=str,
                         default="configs/DSO_demo/default.yml")
     parser.add_argument("--render_bs", type=int, default=16384)
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     import jax
     import jax.numpy as jnp
     from enarf_gan_tpu.config import yaml_config
     from enarf_gan_tpu.data.cache import load_sample_data
     from enarf_gan_tpu.geometry.smpl import SMPL_PARENTS
-    from enarf_gan_tpu.models.generator import (register_canonical_pose,
-                                                make_dso_full_renderer)
+    from enarf_gan_tpu.models.generator import make_dso_full_renderer
     from enarf_gan_tpu.training import dso, checkpoint as ckpt
     from PIL import Image
 
@@ -54,14 +53,12 @@ def main():
         "inv_intrinsics": np.linalg.inv(
             np.asarray(first["intrinsics"], np.float32))[None],
     }
-    variables, _, opt_state = dso.init_state(config, gen, canonical_pose, rng,
-                                             sample_batch)
+    variables = dso.init_variables(gen, canonical_pose, rng, sample_batch)
     out_dir = os.path.join(config.out_root, "result", config.out)
     snap = ckpt.latest_checkpoint(out_dir)
     if snap is None:
         raise Exception("model not loaded")
-    template = {"iteration": 0, "gen": variables, "gen_opt": opt_state}
-    variables = ckpt.load_checkpoint(snap, template)["gen"]
+    variables = ckpt.load_checkpoint(snap, {"gen": variables})["gen"]
 
     bg_color = config.dataset.bg_color
     frame_time = jnp.array([1.0], jnp.float32)

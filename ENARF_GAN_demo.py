@@ -9,9 +9,9 @@ import os
 import numpy as np
 
 
-def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+def main(argv=None):
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--default_config", type=str,
@@ -25,7 +25,7 @@ def main():
                         help="marching-tetrahedra voxel size (reference "
                              "mesh_rendering.py:52 voxel 3mm)")
     parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     import jax
     import jax.numpy as jnp

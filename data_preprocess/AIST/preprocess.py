@@ -30,8 +30,8 @@ N_PER_PERSON = 3000  # default; --n_per_person overrides for small runs
 def smpl_forward_batch(model, poses):
     import jax.numpy as jnp
     from enarf_gan_tpu.geometry.smpl import smpl_pose_transforms
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     betas = np.zeros((len(poses), model["shapedirs"].shape[-1]), np.float32)
     return np.array(smpl_pose_transforms(
         jnp.asarray(betas), jnp.asarray(poses.reshape(len(poses), -1),

@@ -21,8 +21,8 @@ IMAGE_SIZE = 512
 def smpl_forward(model, poses, betas):
     import jax.numpy as jnp
     from enarf_gan_tpu.geometry.smpl import smpl_pose_transforms
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     return np.asarray(smpl_pose_transforms(
         jnp.asarray(betas, jnp.float32),
         jnp.asarray(poses.reshape(1, -1), jnp.float32),

@@ -1,4 +1,4 @@
-"""Export LPIPS (VGG/Alex) weights to .npz for offline on-TPU LPIPS.
+"""Export LPIPS (VGG/Alex) weights to .npz for offline on-device LPIPS.
 
 Run once on a machine with the `lpips` pip package + network access:
 

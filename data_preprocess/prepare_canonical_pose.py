@@ -22,8 +22,8 @@ def main():
 
     import jax.numpy as jnp
     from enarf_gan_tpu.geometry.smpl import smpl_pose_transforms
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
 
     for gender in ["MALE", "FEMALE", "NEUTRAL"]:
         path = os.path.join(args.smpl_dir, f"SMPL_{gender}.npz")

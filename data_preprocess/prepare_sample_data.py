@@ -13,13 +13,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--data_root", type=str, required=True)
     parser.add_argument("--out", type=str, required=True)
     parser.add_argument("--num", type=int, default=20)
     parser.add_argument("--stride", type=int, default=1)
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     from enarf_gan_tpu.data.cache import load_cache
     from enarf_gan_tpu.data.datasets import SMPL_PARENTS

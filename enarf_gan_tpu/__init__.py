@@ -1,15 +1,16 @@
-"""enarf_gan_tpu — TPU-native (JAX/XLA/Pallas/pjit) framework for efficient
-geometry-aware neural articulated representations (ENARF-GAN capabilities).
+"""enarf_gan_tpu — JAX framework for efficient geometry-aware neural
+articulated representations (ENARF-GAN capabilities).
 
-Re-designed TPU-first from the reference PyTorch/CUDA implementation
-(see /root/reference, nogu-atsu/ENARF-GAN): pure functions over pytrees,
-static shapes + masking instead of dynamic compaction, Pallas kernels for
-the fused tri-plane gather, and `jax.sharding` meshes for scale-out.
+Re-designed from the reference PyTorch/CUDA implementation
+(nogu-atsu/ENARF-GAN): pure functions over pytrees, static shapes + masking
+instead of dynamic compaction, packed-table tri-plane gathers compiled by
+XLA, and `jax.sharding` meshes for scale-out.
 
 Layer map (mirrors reference SURVEY.md §1, rebuilt idiomatically):
-  ops/       — numeric kernels: grid_sample, tri-plane gather (XLA + Pallas),
+  ops/       — numeric kernels: grid_sample, tri-plane gathers,
                custom-VJP activations, upfirdn2d
-  nn/        — equalized/modulated layers, StyleGAN2 synthesis/mapping/D
+  nn/        — module layer, equalized/modulated layers, StyleGAN2
+               synthesis/mapping/D
   geometry/  — pose math, SMPL forward kinematics, positional encodings
   nerf/      — ray sampling, frustum clipping, coarse/fine volume rendering
   models/    — TriPlaneNARF / MLPNARF / generators

@@ -1,6 +1,6 @@
 """Host-side batch loader with background prefetch.
 
-TPU-native replacement for torch DataLoader workers
+Replacement for torch DataLoader workers
 (SURVEY.md §2.4 "Multi-process data loading"): a thread pool assembles numpy
 batches ahead of time; the training loop overlaps host assembly with device
 steps (jax dispatch is async, so one batch of lookahead suffices to hide

@@ -2,11 +2,11 @@
 
 Numerically equivalent to the reference implementations
 (reference: libraries/NeRF/utils.py:13-106) but with static shapes and no
-in-place masking; suitable for use inside jit/Pallas pipelines.
+in-place masking; suitable for use inside jit.
 
 Conventions: point batches are laid out ``(B, C, n)`` with the large ``n``
-axis last — on TPU the last axis maps to vector lanes, so elementwise work
-over millions of samples stays dense.
+axis last (minor), so elementwise work over millions of samples stays
+contiguous.
 """
 from __future__ import annotations
 

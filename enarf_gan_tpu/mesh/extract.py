@@ -4,8 +4,8 @@ Replaces the reference's PyMCubes path (reference: libraries/NARF/
 mesh_rendering.py:50-81): density is evaluated on a voxel grid around the
 body center in fixed-size chunks on-device, then iso-surfaced on the host.
 The iso-surfacer is marching tetrahedra (6-tet cube split) — table-free,
-vectorized numpy, watertight; a TPU-native redesign choice over the C++
-marching-cubes dependency.
+vectorized numpy, watertight; it replaces the C++ marching-cubes
+dependency.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Image-level generators: TriNARFGenerator (GAN) and DSONARFGenerator.
 
-TPU-native re-design of reference models/generator.py:14-300. Both are pure
-flax modules; RNG is threaded explicitly; the reference's
+Re-design of reference models/generator.py:14-300. Both are pure
+modules (nn/module.py); RNG is threaded explicitly; the reference's
 ``buffers_tensors`` (fine_weights / fine_depth / tri_plane_feature) are
 returned in an ``aux`` dict.
 
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from enarf_gan_tpu.nn import module as nn
 
 from enarf_gan_tpu.geometry.encoding import scalar_positional_encoding
 from enarf_gan_tpu.geometry.pose import transform_pose, transform_canonical_pose
@@ -296,7 +296,7 @@ class TriNARFGenerator(nn.Module):
         planes = self.compute_tri_plane_feature(z_nerf, bl_t, truncation_psi,
                                                 update_w_avg=train)
 
-        # no scan while flax is creating params (init traces once, full-width)
+        # no scan while init creates params (init traces once, full-width)
         chunk = None if self.is_initializing() else (self.train_ray_chunk or None)
         P = self.nerf_params.tile_patch
         if self.nerf.supports_tiled_sampling():
@@ -314,8 +314,8 @@ class TriNARFGenerator(nn.Module):
                         m, S, ray_dir)
                     return d, c
                 if train:
-                    # remat the per-point network: window gathers as
-                    # residuals OOM a 16 GB chip (SURVEY §7.3)
+                    # remat the per-point network: the window gathers would
+                    # otherwise be stored as residuals (SURVEY §7.3)
                     inner = jax.checkpoint(inner)
                 return inner(points, ray_dir, pose_scaled)
 
@@ -339,10 +339,9 @@ class TriNARFGenerator(nn.Module):
 
             if train:
                 # rematerialize the per-point network in the backward pass:
-                # the gathered quad rows alone are ~5 GB/image at 128² —
-                # storing them as residuals OOMs a 16 GB chip; recomputing
-                # costs ~1/3 of a forward (SURVEY §7.3: trade FLOPs for HBM
-                # via jax.checkpoint)
+                # the gathered quad rows are several GB per 128² image as
+                # residuals; recomputing costs about a third of a forward
+                # (SURVEY §7.3: trade FLOPs for memory via jax.checkpoint)
                 fn = jax.checkpoint(fn)
 
             fg_color, fg_mask, disparity, raux = render_rays(
@@ -469,8 +468,8 @@ def make_dso_full_renderer(gen: DSONARFGenerator, render_size: int,
                            with_camera_pose: bool = True):
     """Build a JITTED full-image DSO renderer (compile once, reuse per frame).
 
-    The unjitted helper dispatches ~per-op on TPU (catastrophic through a
-    remote runtime); all callers on hot paths must use this factory.
+    The unjitted helper dispatches op by op; all callers on hot paths must
+    use this factory.
     """
     import functools
 

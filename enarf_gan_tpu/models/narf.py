@@ -1,6 +1,6 @@
-"""Articulated NeRF models: TriPlaneNARF and MLPNARF (flax.linen).
+"""Articulated NeRF models: TriPlaneNARF and MLPNARF.
 
-TPU-native re-design of the reference model family (reference:
+Re-design of the reference model family (reference:
 models/narf.py:17-389, libraries/NARF/base.py, libraries/NeRF/base.py).
 Differences by design:
 
@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from enarf_gan_tpu.nn import module as nn
 
 from enarf_gan_tpu.geometry.encoding import (
     in_cube, multi_part_positional_encoding, positional_encoding, to_local)
@@ -50,11 +50,9 @@ def _sampler_kind() -> str:
     """Which candidate-sparse tri-plane sampler drives the hot path.
 
     "unirow" (default, bf16 sampling only — f32 configs fall back to
-    "quad"): ops/unirow.py — ONE fused 256-lane row gather per
+    "quad"): ops/unirow.py — ONE fused row gather per
     (point, candidate, plane) carrying the feature quad AND all-bone mask
-    quads, combined by an XLA one-hot-select graph (a Pallas combine
-    exists behind ENARF_UNIROW_COMBINE=pallas but loses to XLA on
-    lane-sliced 256-wide reads — PERF.md).
+    quads, combined by an XLA one-hot-select graph.
     "quad": ops/quadtable.py — feature row + bone-folded mask row (v3).
     "rowtable": ops/rowtable.py — two row gathers per sample (v2 path).
     "gridsample": per-plane grid-sample path (correctness oracle).
@@ -122,9 +120,7 @@ class NARFParams:
     # top-M sparse bone gather (ops/triplane.py sample_weighted_feature_topm);
     # None/num_bone = exact dense. 4 covers real cube overlaps.
     max_bones_per_point: int = 4
-    # dtype the packed row table is sampled in; TPU row gathers are
-    # issue-rate-bound, not bandwidth-bound (PERF.md), so f32 costs the same
-    # as bf16 and keeps full precision
+    # dtype the packed row table is sampled in ("float32" | "bfloat16")
     plane_sample_dtype: str = "float32"
     # patch-window fast path (ops/tilewin.py): side of the pixel patch whose
     # rays share depth bins and window fetches; 0 = off (exact per-member
@@ -452,9 +448,9 @@ class TriPlaneNARF(nn.Module):
                 cand_w = jax.nn.sigmoid(cand_pos.sum(axis=3))  # (B, n, M)
             elif (packed and len(tri_plane_feature) == 1) or (
                     not packed and kind == "unirow"):
-                # unirow table: ONE fused 256-lane gather per
+                # unirow table: ONE fused row gather per
                 # (pt, cand, plane) — feature quad + all-bone mask quads in
-                # the same row, Pallas combine (ops/unirow.py)
+                # the same row (ops/unirow.py)
                 from enarf_gan_tpu.ops.unirow import (
                     pack_unirow, sample_candidates_unirow)
                 table = (tri_plane_feature[0] if packed else
@@ -544,9 +540,7 @@ class TriPlaneNARF(nn.Module):
         order ((patch*m + member)*S + sample); see nerf/tiled.py.
         """
         from enarf_gan_tpu.ops.tilewin import (select_patch_slots,
-                                               sample_tilewin,
-                                               sample_tilewin_fused,
-                                               fused_combine_enabled)
+                                               sample_tilewin)
         p = self.params
         bs, _, n = position.shape
         local, canonical = self.to_local_and_canonical(
@@ -563,9 +557,6 @@ class TriPlaneNARF(nn.Module):
             feature = jnp.tile(f0, (1, reps, 1))[:, :tables.feat_dim]
             cand_w = jax.nn.sigmoid(cand_pos.sum(axis=1))  # (B,Mp,np,m,S)
             out = (feature, cand_w, {"clamped": jnp.float32(0)})
-        elif fused_combine_enabled() and not with_stats and m == 16:
-            out = sample_tilewin_fused(tables, cand_pos, slot_idx,
-                                       cand_valid, clamp_mask=p.clamp_mask)
         else:
             out = sample_tilewin(tables, cand_pos, slot_idx, cand_valid,
                                  clamp_mask=p.clamp_mask,

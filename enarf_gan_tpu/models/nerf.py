@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from enarf_gan_tpu.nn import module as nn
 
 from enarf_gan_tpu.geometry.encoding import in_cube, positional_encoding, to_local
 from enarf_gan_tpu.models.narf import NARFParams, _DensityColorHeads

@@ -1,12 +1,15 @@
 """ctypes bindings for the native data-plane kernels (batcher.cpp).
 
-Compiled on first import with g++ (cached as libbatcher.so next to the
-source); every entry point has a numpy fallback, so the framework works
-without a toolchain too. ``available()`` reports which path is active.
+Compiled with g++ on first use into ``libbatcher-<source hash>.so`` next to
+the source, so an edited ``batcher.cpp`` always gets a fresh build and an
+unchanged one is never rebuilt; every entry point has a numpy fallback, so
+the framework works without a toolchain too. ``available()`` reports which
+path is active.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -14,17 +17,25 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_HERE, "libbatcher.so")
 _SRC = os.path.join(_HERE, "batcher.cpp")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build():
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", _SO, _SRC,
+def lib_path(src: str = _SRC) -> str:
+    """Library built from ``src``: named by a hash of the source's bytes."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return os.path.join(os.path.dirname(src), f"libbatcher-{digest}.so")
+
+
+def _build(src: str, so: str):
+    tmp = f"{so}.{os.getpid()}.tmp"  # each concurrent build renames its own
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, src,
            "-lpthread"]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, so)
 
 
 def _load():
@@ -34,10 +45,10 @@ def _load():
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_SO) or \
-                    os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build()
-            lib = ctypes.CDLL(_SO)
+            so = lib_path()
+            if not os.path.exists(so):
+                _build(_SRC, so)
+            lib = ctypes.CDLL(so)
             lib.normalize_u8_to_f32.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
             lib.mask_from_alpha.argtypes = [
@@ -46,7 +57,7 @@ def _load():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             _lib = None
     return _lib
 

@@ -1,6 +1,6 @@
 // Native data-plane kernels for the host input pipeline.
 //
-// TPU-native counterpart of the reference's native dataloader stack (torch
+// Counterpart of the reference's native dataloader stack (torch
 // DataLoader worker processes + blosc C codec, reference train_ENARF_GAN.py:56-63,
 // dataset/dataset.py:159): multithreaded, GIL-free batch assembly primitives
 // exposed via ctypes (see native/__init__.py).
@@ -9,7 +9,7 @@
 //   mask_from_alpha       uint8 alpha channel -> float32 [0, 1]
 //   gather_rows_f32       row gather (batch assembly / pixel gather on host)
 //
-// Build: g++ -O3 -march=native -shared -fPIC -o libbatcher.so batcher.cpp -lpthread
+// Built on first use by native/__init__.py (g++ -O3 -shared -fPIC ... -lpthread).
 
 #include <cstdint>
 #include <cstring>

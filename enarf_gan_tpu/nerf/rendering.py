@@ -1,13 +1,13 @@
 """Volume rendering runtime — frustum clipping, coarse→fine sampling, compositing.
 
-TPU-native re-design of the reference render stack
+Re-design of the reference render stack
 (reference: libraries/NeRF/rendering.py:10-427):
 
 * static shapes throughout — the reference's batchsize==1 invalid-ray
   compaction (rendering.py:107-110,337-350) becomes a validity mask that
   zeroes outputs; identical results, jit/pjit friendly;
 * importance resampling via inverse-CDF sampling (a dense compare-sum —
-  identical indices to searchsorted, 17x faster on TPU) with independent
+  identical indices to searchsorted) with independent
   in-bin jitter — the same piecewise-constant distribution
   ``torch.multinomial`` + uniform/Nc realizes (rendering.py:192-194), without
   the sequential multinomial kernel;
@@ -172,8 +172,8 @@ def fine_sample_depths(rng: jax.Array, weights: jnp.ndarray, Nf: int,
     k_bin, k_jit = jax.random.split(rng)
     u = jax.random.uniform(k_bin, (R, Nf), weights.dtype)
     # inverse-CDF bin index == searchsorted(cdf, u), computed as a dense
-    # compare-sum: Nc is tiny, and the vectorized compare runs ~17x faster
-    # on TPU than a vmapped binary search (identical indices; PERF.md)
+    # compare-sum: Nc is tiny, so the vectorized compare replaces a
+    # vmapped binary search (identical indices)
     idx = (cdf[:, None, :] < u[:, :, None]).sum(axis=2)   # (R, Nf)
     jitter = jax.random.uniform(k_jit, (R, Nf), weights.dtype)
     bins = (idx.astype(weights.dtype) + jitter) / Nc

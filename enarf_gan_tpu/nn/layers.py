@@ -1,4 +1,4 @@
-"""Equalized-LR and modulated layers (flax.linen).
+"""Equalized-LR and modulated layers (on nn/module.py).
 
 Numerics match the reference's custom StyleGAN2 primitives
 (reference: libraries/custom_stylegan2/net.py:30-320):
@@ -9,8 +9,8 @@ Numerics match the reference's custom StyleGAN2 primitives
 * per-sample modulated 1x1 conv over point clouds, demodulated by L2 weight
   row normalization (net.py:230-254).
 
-TPU notes: all 1x1 "convs" over (B, C, n) point batches are einsums — MXU
-matmuls with the huge n axis in the lanes. Per-sample modulation uses the
+All 1x1 "convs" over (B, C, n) point batches are einsums — matmuls with
+the huge n axis minor. Per-sample modulation uses the
 input-scaling formulation instead of the reference's batch-grouped-conv
 trick, which is algebraically identical and avoids materializing B copies of
 the weights.
@@ -23,10 +23,10 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from enarf_gan_tpu.nn import module as nn
 
-# Matmul precision: None defers to jax_default_matmul_precision (bf16-in/f32-acc
-# on TPU by default — the fast MXU path; tests pin "float32" for golden parity).
+# Matmul precision: None defers to jax_default_matmul_precision (a float32
+# matmul may run in TF32 on a GPU; tests pin "float32" for golden parity).
 _MATMUL_PREC = None
 
 

@@ -1,4 +1,4 @@
-"""StyleGAN2 in JAX/flax — mapping, skip-architecture synthesis, discriminator.
+"""StyleGAN2 in JAX — mapping, skip-architecture synthesis, discriminator.
 
 One implementation serves all three uses in the framework (the reference uses
 two separate CUDA-op libraries for these):
@@ -13,8 +13,7 @@ convs demodulated by rsqrt(sum sq), FIR [1,3,3,1] up/down firdn, skip
 to_rgbs, and a minibatch-std discriminator (net.py:609-676).
 
 Per-sample modulation uses the input-scale/output-demod formulation (one
-shared-weight conv per layer instead of B grouped convs — same math, MXU
-friendly). The upsample path realizes the transposed conv via lhs_dilation;
+shared-weight conv per layer instead of B grouped convs — same math). The upsample path realizes the transposed conv via lhs_dilation;
 kernels are stored in conv orientation (a .pth import must flip them).
 
 Truncation ψ uses a w_avg tracked in the 'stats' collection (ADA-style,
@@ -28,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from enarf_gan_tpu.nn import module as nn
 
 from enarf_gan_tpu.nn.layers import (EqualLinear, EqualConv2d, fused_leaky_relu,
                                      pixel_norm, _normal_init, _MATMUL_PREC)

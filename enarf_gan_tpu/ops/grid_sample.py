@@ -1,4 +1,4 @@
-"""Bilinear 2-D grid sampling on TPU.
+"""Bilinear 2-D grid sampling.
 
 Matches ``torch.nn.functional.grid_sample(..., mode='bilinear',
 padding_mode='zeros', align_corners=False)``, the semantics the reference's
@@ -10,9 +10,8 @@ Two implementations, numerically identical (both torch-oracle tested):
 
 * ``grid_sample_2d`` — quad-row formulation: the image is repacked so each
   row of a flat table carries the full 2x2 bilinear quad of one sample cell,
-  making each sample ONE row gather plus lane arithmetic. TPU row gathers
-  run at ~200 GB/s effective regardless of row count (PERF.md), so this is
-  ~30-50x faster than broadcasting the channel axis through the gather.
+  making each sample ONE row gather plus arithmetic on the fetched row,
+  instead of broadcasting the channel axis through the gather.
 * ``grid_sample_2d_texelwise`` — the original 4-corner
   ``take_along_axis`` formulation, kept as a second oracle and for
   platforms/shapes where repacking is not worth it.

@@ -1,4 +1,4 @@
-"""Quad-packed tri-plane sampling — the TPU fast path (v3).
+"""Quad-packed tri-plane sampling (the f32 per-member sampler).
 
 Replaces ``ops/rowtable.py`` (two row fetches per sample) with ONE feature
 row fetch plus one slim mask row fetch per (point, candidate, plane): each
@@ -7,10 +7,9 @@ the bilinear interpolation becomes lane arithmetic on the fetched row.
 
 Reference equivalents: libraries/triplane/sampling.py:54-127 and
 cuda_extension/TriplaneSampler_kernel.cu:37-92 (the fused gather-sum with
-``align_corners=False`` + zeros padding). Measured on TPU v5e
-(tools/bench_dyngather2.py): XLA row gathers are BYTES-bound at ~200 GB/s
-effective, so the two design rules here are (a) fetch each texel quad once,
-(b) fetch only the bytes you use. Hence two tables:
+``align_corners=False`` + zeros padding). The two design rules are (a)
+fetch each texel quad once, (b) fetch only the bytes you use. Hence two
+tables:
 
 * feature table — rows of 4F lanes (=128 for F=32), one row per sample cell:
 
@@ -76,8 +75,8 @@ def _quad_cells_weights(cp: jnp.ndarray, H: int, W: int):
     """Cell index (t, s) + 4 bilinear corner weights per (plane, cand, pt).
 
     cp: (B, 3, M, n) canonical positions in [-1, 1] (invalid at 2), with the
-    POINT axis minor — every per-sample scalar op below runs at full lane
-    width (TPU lanes = the minor axis; an M-minor layout wastes 31/32 lanes).
+    POINT axis minor — every per-sample scalar op below runs over the long
+    contiguous axis.
     Returns cells (B, 3, M, n) int32 (= t*(W+1)+s) and wq: 4 arrays
     (B, 3, M, n) f32 in corner order [A, B, C, D].
     """
@@ -150,9 +149,9 @@ def sample_candidates_quadtable(
     gm = jnp.take(mask_table.reshape(B * Rm, 4), mrows.reshape(-1),
                   axis=0).reshape(B, 3, M, n, 4)
 
-    # XLA combine: 4 lane-slices over g in one fused pass; the wq
-    # factors stay as four separate n-minor arrays (never stacked into a
-    # 4-lane-minor layout, which measures ~10x slower on TPU — PERF.md)
+    # XLA combine: 4 slices over g in one fused pass; the wq factors stay
+    # as four separate n-minor arrays (never stacked into a 4-wide minor
+    # layout)
     feat = sum(g[..., q * F:(q + 1) * F]
                * wq[q][..., None].astype(g.dtype) for q in range(4))
     feat = feat.astype(jnp.float32).sum(axis=1)           # (B, M, n, F)

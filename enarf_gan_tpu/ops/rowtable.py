@@ -1,4 +1,4 @@
-"""Row-table tri-plane sampling — the TPU fast path.
+"""Row-table tri-plane sampling.
 
 Replaces the channel-broadcast gathers of ``ops/grid_sample.py`` on the hot
 path (reference equivalents: libraries/triplane/sampling.py:54-127 and
@@ -6,10 +6,10 @@ cuda_extension/TriplaneSampler_kernel.cu:37-92).
 
 SUPERSEDED by ``ops/quadtable.py`` (one fetch per sample-plane); kept as a
 second independently-tested formulation (ENARF_SAMPLER=rowtable). Layout
-rationale: on TPU, ``jnp.take(table, rows, axis=0)`` with the channel axis
-MINOR is row-issue-bound (~300-400 M rows/s — PERF.md), while a
-``take_along_axis`` whose index is broadcast over a 32-wide channel axis
-degrades to per-element gathers. So we lay the planes out channels-last as
+rationale: ``jnp.take(table, rows, axis=0)`` with the channel axis MINOR
+fetches whole rows, while a ``take_along_axis`` whose index is broadcast
+over a 32-wide channel axis degrades to per-element gathers. So we lay the
+planes out channels-last as
 one flat row table and make each bilinear sample exactly TWO row fetches:
 
 * row r = (plane p, line y, pair-slot s) holds the lane vector

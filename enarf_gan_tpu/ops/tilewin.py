@@ -1,32 +1,24 @@
-"""Patch-window tri-plane sampling — shared-fetch TPU fast path (v5).
+"""Patch-window tri-plane sampling — shared window fetches across rays.
 
 The per-member samplers (ops/unirow.py, ops/quadtable.py) pay one row
-gather per (point, candidate, plane); XLA row gathers are ISSUE-bound
-(245-415 M rows/s, PERF.md), which caps a 128² frame at ~0.1-0.25 Mrays/s.
-This sampler exploits ACROSS-RAY locality instead (measured,
-tools/analyze_patch_locality.py): with depth bins pooled per 4×4-pixel
-patch, the 16 member rays of a (patch, sample, bone, plane) group land
-within ≤5 texels of each other on the plane — so ONE 8×8-texel window
-fetch serves the whole group:
+gather per (point, candidate, plane). This sampler exploits ACROSS-RAY
+locality instead: with depth bins pooled per 4×4-pixel patch, the 16
+member rays of a (patch, sample, bone, plane) group land within ≤5 texels
+of each other on the plane — so ONE 8×8-texel window fetch serves the
+whole group:
 
-  fetch   jnp.take of (16,128)-tile rows from a stride-2 packed window
-          table (row-shaped takes; unaligned XLA window-gathers are 7×
-          slower, tools/bench_tileshape.py / bench_windowgather.py)
+  fetch   jnp.take of window rows from a stride-2 packed window table
   select  per-member bilinear = one batched einsum (members, 64) one-hot-
-          bilinear weights @ (group, 64, F) windows — MXU; the 64-vector
-          is the outer product of separable 8-wide t/s weight vectors, so
-          the 4 bilinear corners ride one matmul
+          bilinear weights @ (group, 64, F) windows; the 64-vector is the
+          outer product of separable 8-wide t/s weight vectors, so the 4
+          bilinear corners ride one matmul
 
-The window is 8×8 because 64·F lanes (F=32) is EXACTLY one (16,128)
-bf16 tile — the row layout then has the separable tile structure
-``t = sublane//2, s = 4·(sublane%2) + lane//32`` that the fused Pallas
-combine (ops/tilewin_kernel.py) exploits with no in-kernel reshapes —
-and because stride-2 bases + 8 texels cover member spread ≤ 5
-unconditionally (7×7 needed even minima for spread 5). The residual
+The window is 8×8 because stride-2 bases + 8 texels cover member spread
+≤ 5 unconditionally (7×7 needed even minima for spread 5). The residual
 (groups with spread > 5; ~0 on bench geometry) is CLAMPED to the window
-edge and reported by ``coverage_stats`` so callers can assert bounds.
-The exact per-member samplers remain the default for eval/interop
-parity paths.
+edge and reported by ``with_stats`` so callers can assert bounds. The
+exact per-member samplers remain the default for eval/interop parity
+paths.
 
 Reference equivalents: libraries/triplane/sampling.py:54-127,
 cuda_extension/TriplaneSampler_kernel.cu:37-92 (align_corners=False,
@@ -45,29 +37,11 @@ from enarf_gan_tpu.ops.triplane import PLANE_COORDS
 WIN = 8            # window side, texels
 NTEX = WIN * WIN   # texels per window
 STRIDE = 2         # window base stride, texels
-SUB = 16           # sublanes per packed feature-window tile
+SUB = 16           # rows per packed feature-window tile (SUB*LANE >= 64*F)
 LANE = 128
 RESCUE_W = 0.5     # uncovered-member rescue weight in select_patch_slots
                    # (module-level so tests can pin its effect on the
                    # sparse-frame capacity leak, tests/test_tilewin_sparse.py)
-
-
-def fused_combine_enabled() -> bool:
-    """Fused Pallas combine (ops/tilewin_kernel.py) — DEFAULT ON on TPU.
-
-    Round 5 flipped the default after the kernel's first recorded on-chip
-    win: 12.8 vs 18.7 ms per coarse chunk, 217 vs 255 ms/frame end-to-end
-    (PERF.md round 5; the round-4 losses were the (…, M, 1) coordinate
-    padding + the 32-lane-slice s-interpolation, both fixed). Opt out
-    with ENARF_TILEWIN_FUSED=0. On CPU backends the XLA combine stays
-    default (interpret-mode Pallas is orders slower; the parity tests
-    opt in explicitly)."""
-    import os
-    import jax
-    v = os.environ.get("ENARF_TILEWIN_FUSED")
-    if v is not None:
-        return v == "1"
-    return jax.default_backend() == "tpu"
 
 
 class TilewinTables(NamedTuple):
@@ -112,10 +86,8 @@ def pack_tilewin(tri_plane_feature: jnp.ndarray, feat_dim: int,
                         (1, span - W - 1)))
 
     # Texel slabs are stacked on axis 0 (major) and transposed ONCE at the
-    # end. Stacking them texel-MINOR (the round-1..4 layout) made XLA
-    # materialize each slab as a (N, 1) array with the 128x trailing-1
-    # tile padding — 64 x 271 MB of transients for the 256² mask planes,
-    # which OOM'd a 16 GB chip at batch size ONE (round-5 on-chip run).
+    # end: stacking them texel-MINOR makes XLA materialize each slab as a
+    # (N, 1) array, which tiled layouts pad up to 128x.
     def windows(p, ch_last):  # → (64, ..., nb, nb[, C])
         slabs = []
         for dt in range(WIN):
@@ -140,8 +112,7 @@ def pack_tilewin(tri_plane_feature: jnp.ndarray, feat_dim: int,
     mw = mw.reshape(NTEX, B * K * 3 * nb * nb).astype(jnp.bfloat16)
     # materialize the texel-MAJOR (64, N) stack before transposing: without
     # the barrier XLA fuses the transpose into the 64 strided slices and
-    # each materializes as a (1, N) minor-0 array with the 128x tile pad
-    # (the OOM this layout change exists to fix)
+    # each materializes as a (1, N) minor-0 array
     mw = jax.lax.optimization_barrier(mw)
     mw = mw.transpose(1, 0)             # (N, 64)
     return TilewinTables(fw, mw, nb, F, K, H)
@@ -285,9 +256,8 @@ def sample_tilewin(tables: TilewinTables, cand_pos: jnp.ndarray,
                           (B, 3, Mp, n_patch, m, S))
     bt, bs = group_bases(pym, pxm, vm, nb)              # (B,3,Mp,np,S)
 
-    # Layout note (measured: the naive plane-major layout spends 27 of a
-    # 30.7 ms sample in XLA-materialized intermediates — the per-plane f32
-    # (…, m, F) features alone are 3×100 MB/chunk plus a 300 MB transpose).
+    # Layout note: a plane-major layout materializes per-plane f32
+    # (…, m, F) features plus a transpose of them in device memory.
     # Everything below is arranged PLANE-MINOR so (plane, texel) merge into
     # one 192-wide contraction straight out of the gather, with no
     # transpose of anything bigger than the f32 coordinate tensors.
@@ -326,7 +296,7 @@ def sample_tilewin(tables: TilewinTables, cand_pos: jnp.ndarray,
     # zero the weights of invalid members so garbage texels never leak
     w64 = w64 * toT(vm)[..., None].astype(w64.dtype)
 
-    # select+bilinear+plane-sum: ONE batched MXU contraction over all
+    # select+bilinear+plane-sum: ONE batched contraction over all
     # 3·64 (plane, texel) lanes; the 12 bilinear corners are the nonzeros
     w192 = w64.reshape(B, Mp, n_patch, S, m, 3 * NTEX)
     feat = jnp.einsum("bgnsmw,bgnswf->bgnsmf", w192, g,
@@ -347,132 +317,3 @@ def sample_tilewin(tables: TilewinTables, cand_pos: jnp.ndarray,
         return feature, cand_w
     stats = {"clamped": (clamped & vm).sum() / jnp.maximum(vm.sum(), 1)}
     return feature, cand_w, stats
-
-
-# ---------------------------------------------------------------------------
-# Fused-combine path (ops/tilewin_kernel.py): same window-fetch plan, but
-# the bilinear select + sigmoid-prod + slot-weighted sum runs in one Pallas
-# kernel that keeps every intermediate in VMEM. Forward-only kernel; the
-# custom_vjp backward recomputes through sample_tilewin's XLA graph, so
-# gradients are identical to the exact path's.
-# ---------------------------------------------------------------------------
-
-def _fused_plan(tables: TilewinTables, cand_pos, slot_idx, cand_valid):
-    """Window-row tiles + per-member in-window coordinates, MEMBER-MAJOR.
-
-    Returns (g, gm, xt, xs, valid_f) with unit axis U = np*S:
-    g (B,3,Mp,U,SUB,LANE) bf16 tile rows, gm (B,3,Mp,U,64) bf16,
-    xt/xs (B,3,Mp,m,U) f32 in-window positions (texel offset + fraction,
-    in [0, WIN-1)), valid_f (B,Mp,m,U) f32. The coordinate arrays are
-    U-MINOR so they carry zero HBM tile padding (the round-4 (…, U, m)
-    and (…, M, 1) layouts paid 8x / 128x pad — PERF.md round 4-5).
-    """
-    B, _, Mp, n_patch, m, S = cand_pos.shape
-    K, nb, size = tables.num_bone, tables.nb, tables.size
-    U = n_patch * S
-    cpT = cand_pos.transpose(0, 1, 2, 4, 3, 5)          # (B,3,Mp,m,np,S)
-    py, px, fy, fx = member_texels(cpT.reshape(B, 3, Mp, m * U), size)
-    pym = py.reshape(B, 3, Mp, m, U)
-    pxm = px.reshape(B, 3, Mp, m, U)
-    validT = cand_valid.transpose(0, 1, 3, 2, 4).reshape(B, Mp, m, U)
-    vm = jnp.broadcast_to(validT[:, None], (B, 3, Mp, m, U))
-    big = jnp.int32(10 ** 6)
-    inv = jnp.where(vm, 0, big)
-    hi = (nb - 1) * STRIDE
-    bt = jnp.clip(((pym + inv).min(axis=3) // STRIDE) * STRIDE, 0, hi)
-    bs = jnp.clip(((pxm + inv).min(axis=3) // STRIDE) * STRIDE, 0, hi)
-
-    plane = jnp.arange(3, dtype=jnp.int32).reshape(1, 3, 1, 1)
-    batch = jnp.arange(B, dtype=jnp.int32).reshape(B, 1, 1, 1)
-    bi, bj = bt // STRIDE, bs // STRIDE                 # (B,3,Mp,U)
-    frows = ((batch * 3 + plane) * nb + bi) * nb + bj   # (B,3,Mp,U)
-    slot_u = slot_idx.reshape(B, Mp, U)     # (B,Mp,np,S) -> unit-major
-    mrows = (((batch * K + slot_u[:, None]) * 3 + plane)
-             * nb + bi) * nb + bj
-
-    g = jnp.take(tables.feat, frows.reshape(-1), axis=0) \
-        .reshape(B, 3, Mp, U, tables.feat.shape[-2], LANE)
-    gm = jnp.take(tables.mask, mrows.reshape(-1), axis=0) \
-        .reshape(B, 3, Mp, U, NTEX)
-    dt = jnp.clip(pym - bt[:, :, :, None], 0, WIN - 2)
-    ds = jnp.clip(pxm - bs[:, :, :, None], 0, WIN - 2)
-    xt = dt.astype(jnp.float32) + fy.reshape(B, 3, Mp, m, U)
-    xs = ds.astype(jnp.float32) + fx.reshape(B, 3, Mp, m, U)
-    return g, gm, xt, xs, validT.astype(jnp.float32)
-
-
-def _float0_zeros(x):
-    import numpy as np
-    return np.zeros(x.shape, dtype=jax.dtypes.float0)
-
-
-_FUSED_CACHE = {}
-
-
-def _fused_fn(nb: int, F: int, K: int, size: int, clamp_mask: bool):
-    key = (nb, F, K, size, clamp_mask)
-    if key in _FUSED_CACHE:
-        return _FUSED_CACHE[key]
-
-    @jax.custom_vjp
-    def fused(feat, mask, cand_pos, slot_idx, cand_valid):
-        from enarf_gan_tpu.ops.tilewin_kernel import tilewin_combine, TB
-        tables = TilewinTables(feat, mask, nb, F, K, size)
-        B, _, Mp, n_patch, m, S = cand_pos.shape
-        assert m == 16, "fused tilewin combine supports P=4 patches (m=16)"
-        U = n_patch * S
-        g, gm, xt, xs, valid_f = _fused_plan(
-            tables, cand_pos, slot_idx, cand_valid)
-        pad = -U % TB
-        if pad:
-            g = jnp.pad(g, [(0, 0)] * 3 + [(0, pad), (0, 0), (0, 0)])
-            gm = jnp.pad(gm, [(0, 0)] * 3 + [(0, pad), (0, 0)])
-            xt = jnp.pad(xt, [(0, 0)] * 4 + [(0, pad)])
-            xs = jnp.pad(xs, [(0, 0)] * 4 + [(0, pad)])
-            valid_f = jnp.pad(valid_f, [(0, 0)] * 3 + [(0, pad)])
-        interpret = jax.default_backend() != "tpu"
-        feature_u, cand_w_u = tilewin_combine(
-            g, gm, xt, xs, valid_f, F, clamp_mask=clamp_mask,
-            interpret=interpret)
-        feature = feature_u[:, :U].reshape(B, n_patch, S, m, F) \
-            .transpose(0, 4, 1, 3, 2).reshape(B, F, n_patch * m * S)
-        cand_w = cand_w_u[..., :U].reshape(B, Mp, m, n_patch, S) \
-            .transpose(0, 1, 3, 2, 4)                   # (B,Mp,np,m,S)
-        return feature, cand_w
-
-    def fwd(feat, mask, cand_pos, slot_idx, cand_valid):
-        out = fused(feat, mask, cand_pos, slot_idx, cand_valid)
-        return out, (feat, mask, cand_pos, slot_idx, cand_valid)
-
-    def bwd(res, ct):
-        feat, mask, cand_pos, slot_idx, cand_valid = res
-
-        def xla_path(feat_, mask_, pos_):
-            t = TilewinTables(feat_, mask_, nb, F, K, size)
-            return sample_tilewin(t, pos_, slot_idx, cand_valid,
-                                  clamp_mask=clamp_mask)
-
-        _, vjp = jax.vjp(xla_path, feat, mask, cand_pos)
-        gfeat, gmask, gpos = vjp(ct)
-        return (gfeat, gmask, gpos, _float0_zeros(slot_idx),
-                _float0_zeros(cand_valid))
-
-    fused.defvjp(fwd, bwd)
-    _FUSED_CACHE[key] = fused
-    return fused
-
-
-def sample_tilewin_fused(tables: TilewinTables, cand_pos: jnp.ndarray,
-                         slot_idx: jnp.ndarray, cand_valid: jnp.ndarray,
-                         clamp_mask: bool = False):
-    """Drop-in fused-combine variant of ``sample_tilewin`` (no stats).
-
-    Forward runs the Pallas kernel (ops/tilewin_kernel.py); backward
-    recomputes through the XLA path, so training gradients match
-    sample_tilewin exactly. Forward outputs agree with sample_tilewin up
-    to bf16-vs-f32 rounding of the bilinear weights (the kernel keeps the
-    separable weights in f32; the XLA einsum rounds them to bf16).
-    """
-    fn = _fused_fn(int(tables.nb), int(tables.feat_dim),
-                   int(tables.num_bone), int(tables.size), bool(clamp_mask))
-    return fn(tables.feat, tables.mask, cand_pos, slot_idx, cand_valid)

@@ -1,6 +1,6 @@
 """Tri-plane feature sampling (XLA path).
 
-TPU-native re-design of the reference's tri-plane ops
+Re-design of the reference's tri-plane ops
 (reference: libraries/triplane/sampling.py:9-127 and
 cuda_extension/TriplaneSampler_kernel.cu). Design differences, deliberate:
 
@@ -112,10 +112,10 @@ def select_candidate_bones(canonical_pos: jnp.ndarray, validity: jnp.ndarray,
     centrality = 1.0 - jnp.abs(canonical_pos).max(axis=2)  # (B, K, n)
     score = jnp.where(validity, 1.0 + centrality, -1.0)
     if M <= 8:
-        # M repeated argmax sweeps beat lax.top_k's per-point sort on TPU
+        # M repeated argmax sweeps instead of lax.top_k's per-point sort
         # (same selection: argmax, like top_k, takes the lowest index on ties),
         # and the candidate positions come out via a one-hot contraction —
-        # no (B,n,K,3) transpose + gather (layout-hostile on TPU).
+        # no (B,n,K,3) transpose + gather.
         bone_ids = jnp.arange(K, dtype=jnp.int32)[None, :, None]
         sc = score
         idx_l, val_l, oh_l = [], [], []
@@ -246,7 +246,6 @@ def sample_weighted_feature(feat_dim: int, tri_plane_features: jnp.ndarray,
                             position: jnp.ndarray, weight: jnp.ndarray,
                             position_validity: jnp.ndarray,
                             clamp_mask: bool = False,
-                            use_pallas: Optional[bool] = None,
                             max_bones: Optional[int] = None) -> jnp.ndarray:
     """Validity-masked, part-weighted sum of tri-plane features over bones.
 
@@ -268,7 +267,6 @@ def sample_weighted_feature(feat_dim: int, tri_plane_features: jnp.ndarray,
         return sample_weighted_feature_topm(feat_dim, tri_plane_features,
                                             position, weight, position_validity,
                                             max_bones, clamp_mask)
-    del use_pallas  # superseded by the quad sampler (ops/quadtable.py)
     bs, n_bone, _, n = position.shape
     # fold bones into the batch axis of the (shared) planes
     planes = jnp.broadcast_to(tri_plane_features[:, None],

@@ -1,31 +1,23 @@
-"""Unirow tri-plane sampling — single-fetch fused rows (v4 TPU fast path).
+"""Unirow tri-plane sampling — single-fetch fused rows.
 
 Replaces ops/quadtable.py's TWO gathers per (point, candidate, plane) — a
-128-lane feature-quad row plus a 4-lane bone-folded mask row — with ONE
-256-lane bf16 row that carries both:
+feature-quad row plus a bone-folded mask row — with ONE bf16 row of
+4F+128 values that carries both:
 
     [ A_f | B_f | C_f | D_f | A_m(32) | B_m(32) | C_m(32) | D_m(32) ]
 
 where A..D are the 2x2 bilinear texel quad of cell (t, s) and each mask
-corner block holds that texel's mask logit for ALL bones (bone k at lane
-offset k, K <= 32); the candidate's bone is selected by a one-hot over the
-32-lane block at combine time instead of being folded into the row index.
+corner block holds that texel's mask logit for ALL bones (bone k at offset
+k, K <= 32); the candidate's bone is selected by a one-hot over the
+32-wide block at combine time instead of being folded into the row index.
+The mask thus no longer multiplies the table by K: the packed table is
+(B, 3*(H+1)*(W+1), 4F+128), built once per frame
+(models/narf.py::pack_planes).
 
-Why (measured, tools/bench_rowwidth.py, TPU v5e): XLA row gathers are
-ISSUE-bound at ~380-400 M rows/s for rows up to 128 lanes and still run at
-245 M rows/s for 256-lane bf16 rows (125 GB/s) — so one 256-lane fetch
-(4.1 ms/M rows) decisively beats a 128-lane + a narrow fetch
-(2.6 + 2.5 ms/M). The mask no longer multiplies the table by K either:
-the packed table is (B, 3*(H+1)*(W+1), 4F+128) ≈ 100 MB at 256², and is
-built once per frame (models/narf.py::pack_planes).
-
-The combine (bilinear lane arithmetic + bone select + sigmoid-prod +
-weighted feature sum) runs as a custom-VJP XLA graph BY DEFAULT — a
-Pallas combine kernel exists but measured SLOWER than XLA on the
-lane-sliced 256-wide reads (PERF.md), so it stays opt-in behind
-``ENARF_UNIROW_COMBINE=pallas`` for probes. Gradients flow through the
-combine's hand-derived VJP and natively through the gather and
-``pack_unirow`` (plain pad/concat/astype ops), so the whole path trains.
+The combine (bilinear arithmetic + bone select + sigmoid-prod + weighted
+feature sum) is an XLA graph with a hand-derived custom VJP. Gradients flow
+through that VJP and natively through the gather and ``pack_unirow``
+(plain pad/concat/astype ops), so the whole path trains.
 
 Reference equivalents: libraries/triplane/sampling.py:54-127 and
 cuda_extension/TriplaneSampler_kernel.cu:37-92 (fused gather-sum with
@@ -33,7 +25,6 @@ cuda_extension/TriplaneSampler_kernel.cu:37-92 (fused gather-sum with
 """
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import Tuple
 
@@ -43,15 +34,7 @@ import jax.numpy as jnp
 from enarf_gan_tpu.ops.activation import straight_through_clamp
 from enarf_gan_tpu.ops.quadtable import _quad_cells_weights
 
-MASK_BLOCK = 32          # lanes per mask corner block (bones 0..K-1, K<=32)
-_BLK = 512               # pallas block along the point axis
-# points per pallas invocation: XLA stages each call's full outputs
-# (double-buffered) AND its small non-table operands on the 16 MB
-# scoped-vmem stack (S(1)), so one big call OOMs at compile — measured
-# 42.3 MB for a 196K-point call with a (n, F) feature output (the F=32
-# minor axis pads to 128 lanes, 4x). Keeping the point axis minor
-# ((F, n) output) plus a static loop of 16K-point calls stays ~9 MB.
-_CHUNK = 16384
+MASK_BLOCK = 32          # mask lanes per corner block (bones 0..K-1, K<=32)
 
 
 def row_width(feat_dim: int) -> int:
@@ -86,10 +69,9 @@ def pack_unirow(tri_plane_feature: jnp.ndarray, feat_dim: int,
 
 
 def _combine_xla(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask):
-    """Reference combine: g (B,3,M,n,4F+128) bf16 → feature (B,F,n)/cand_w.
+    """Combine: g (B,3,M,n,4F+128) bf16 → feature (B,F,n), cand_w (B,M,n).
 
-    Pure jnp; used on CPU, for tests, and as the custom-VJP recompute
-    skeleton. Keeps n minor throughout (PERF.md layout rule).
+    Keeps n minor throughout.
     """
     F = feat_dim
     B, _, M, n, _ = g.shape
@@ -112,106 +94,6 @@ def _combine_xla(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask):
     return feature, cand_wn
 
 
-def _combine_kernel(g_ref, wq_ref, idx_ref, valid_ref, feat_ref, cw_ref, *,
-                    feat_dim: int, clamp_mask: bool):
-    F = feat_dim
-    g = g_ref[0]                                  # (3, M, BLK, 4F+128) bf16
-    wq = wq_ref[0].astype(jnp.float32)            # (4, 3, M, BLK)
-    idx = idx_ref[0]                              # (M, BLK) int32
-    valid = valid_ref[0].astype(jnp.float32)      # (M, BLK)
-    _, M, BLK, _ = g.shape
-
-    feat = None
-    for q in range(4):
-        fq = g[..., q * F:(q + 1) * F].astype(jnp.float32)  # (3,M,BLK,F)
-        t = fq * wq[q][..., None]
-        feat = t if feat is None else feat + t
-    feat = feat.sum(axis=0)                                  # (M, BLK, F)
-
-    oh = (jax.lax.broadcasted_iota(jnp.int32, (M, BLK, MASK_BLOCK), 2)
-          == idx[..., None]).astype(jnp.float32)             # (M, BLK, 32)
-    base = 4 * F
-    logit = None
-    for q in range(4):
-        mq = g[..., base + q * MASK_BLOCK: base + (q + 1) * MASK_BLOCK]
-        sel = (mq.astype(jnp.float32) * oh[None]).sum(axis=-1)  # (3,M,BLK)
-        t = sel * wq[q]
-        logit = t if logit is None else logit + t
-    if clamp_mask:
-        logit = jnp.clip(logit, -2.0, 5.0)
-    sig = jax.nn.sigmoid(logit)
-    cw = sig[0] * sig[1] * sig[2]       # (M, BLK); Mosaic lacks reduce_prod
-    w = cw * valid
-    wf = (feat * w[..., None]).sum(axis=0)                   # (BLK, F)
-    feat_ref[0] = wf.T                                       # (F, BLK)
-    cw_ref[0] = cw
-
-
-def _combine_pallas(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, _, M, n, RW = g.shape
-    F = feat_dim
-    step = min(_CHUNK, ((n + _BLK - 1) // _BLK) * _BLK)
-    pad = (-n) % step
-    if pad:
-        g = jnp.pad(g, ((0, 0),) * 3 + ((0, pad), (0, 0)))
-        wq4 = jnp.pad(wq4, ((0, 0),) * 4 + ((0, pad),))
-        cand_idx = jnp.pad(cand_idx, ((0, 0), (0, 0), (0, pad)))
-        cand_valid_f = jnp.pad(cand_valid_f, ((0, 0), (0, 0), (0, pad)))
-    npad = n + pad
-
-    def call(gc, wc, ic, vc):
-        grid = (B, step // _BLK)
-        return pl.pallas_call(
-            partial(_combine_kernel, feat_dim=F, clamp_mask=clamp_mask),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 3, M, _BLK, RW),
-                             lambda b, i: (b, 0, 0, i, 0)),
-                pl.BlockSpec((1, 4, 3, M, _BLK),
-                             lambda b, i: (b, 0, 0, 0, i)),
-                pl.BlockSpec((1, M, _BLK), lambda b, i: (b, 0, i)),
-                pl.BlockSpec((1, M, _BLK), lambda b, i: (b, 0, i)),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, F, _BLK), lambda b, i: (b, 0, i)),
-                pl.BlockSpec((1, M, _BLK), lambda b, i: (b, 0, i)),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, F, step), jnp.float32),
-                jax.ShapeDtypeStruct((B, M, step), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                # Mosaic charges a ~42 MB constant to this kernel's scoped
-                # stack (lane-sliced 256-wide rows); v5e has 128 MB VMEM and
-                # nothing else contends within the op, so raise the 16 MB
-                # default rather than shrink blocks further
-                vmem_limit_bytes=100 * 1024 * 1024),
-        )(gc, wc, ic, vc)
-
-    feats, cws = [], []
-    for s in range(0, npad, step):  # static unroll: n is trace-static
-        f, c = call(g[:, :, :, s:s + step], wq4[..., s:s + step],
-                    cand_idx[..., s:s + step], cand_valid_f[..., s:s + step])
-        feats.append(f)
-        cws.append(c)
-    feature = jnp.concatenate(feats, axis=2) if len(feats) > 1 else feats[0]
-    cw = jnp.concatenate(cws, axis=2) if len(cws) > 1 else cws[0]
-    return feature[:, :, :n], cw[:, :, :n]
-
-
-def _use_pallas() -> bool:
-    # default = XLA: measured on TPU v5e (tools/bench_unirow_vs_quad.py),
-    # the XLA combine beats the Pallas combine (which compiles with the
-    # vmem_limit_bytes raise but loses on the lane-sliced 256-wide reads);
-    # unirow+XLA is the overall winner at 22.4 ms vs quadtable's 35.2 ms
-    # for the bench workload. Pallas path kept behind the env for probes.
-    return os.environ.get("ENARF_UNIROW_COMBINE") == "pallas"
-
-
 @partial(jax.custom_vjp, nondiff_argnums=(4, 5))
 def _unirow_combine(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask):
     """feature (B,F,n) f32, cand_w (B,M,n) f32 from gathered unirow rows.
@@ -219,9 +101,6 @@ def _unirow_combine(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask):
     Args: g (B,3,M,n,4F+128) bf16; wq4 (B,4,3,M,n) f32 bilinear corner
     weights; cand_idx (B,M,n) int32; cand_valid_f (B,M,n) f32.
     """
-    if _use_pallas():
-        return _combine_pallas(g, wq4, cand_idx, cand_valid_f, feat_dim,
-                               clamp_mask)
     return _combine_xla(g, wq4, cand_idx, cand_valid_f, feat_dim, clamp_mask)
 
 

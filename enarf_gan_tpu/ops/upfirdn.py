@@ -1,6 +1,6 @@
 """upfirdn2d — upsample / FIR filter / downsample, as one XLA conv.
 
-TPU-native replacement for the reference's CUDA upfirdn2d
+Replacement for the reference's CUDA upfirdn2d
 (reference: libraries/stylegan2_pytorch op/upfirdn2d, used by Blur/Upsample in
 custom_stylegan2/net.py:14). Implemented with a single depthwise
 ``lax.conv_general_dilated``: lhs_dilation realizes the zero-insert upsample,

@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers.
 
 The reference's distributed story is DDP scaffolding that was never enabled
-(SURVEY.md §2.4). The TPU-native design replaces it with GSPMD: one
+(SURVEY.md §2.4). This design replaces it with GSPMD: one
 ``jax.sharding.Mesh`` with a ``data`` axis; batches are sharded over it,
 parameters replicated, and XLA inserts the gradient all-reduces and the
 discriminator minibatch-std reduction automatically (global-batch semantics

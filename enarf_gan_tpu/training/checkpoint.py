@@ -3,45 +3,72 @@
 Pytree snapshots with the same contents and cadence as the reference's
 torch.save dicts {iteration, start_time, gen, (dis,) opts} →
 snapshot_latest + rolling snapshot_{(iter//50000+1)*50000}
-(reference train_ENARF_GAN.py:278-294, train_DSO.py:287-298). Serialized
-with flax msgpack (single file, atomic rename). Optimizer state is saved
-but — matching the reference's deliberate choice
-(train_ENARF_GAN.py:233-234) — NOT restored by default.
+(reference train_ENARF_GAN.py:278-294, train_DSO.py:287-298). Stored as
+one ``.npz`` of the flattened state, one array per leaf keyed by its
+'/'-joined path (e.g. ``gen/params/nerf/tri_plane``), written to a
+temporary file and renamed. Optimizer state is saved but — matching the
+reference's deliberate choice (train_ENARF_GAN.py:233-234) — NOT restored
+by default.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional
 
+import jax
 import numpy as np
-from flax import serialization
+
+
+def _key_name(k) -> str:
+    for attr in ("key", "name", "idx"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    raise TypeError(f"unsupported pytree key {k!r}")
+
+
+def flatten_state(state) -> Dict[str, np.ndarray]:
+    """Pytree → {'/'-joined key path: numpy array}."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {"/".join(_key_name(k) for k in path): np.asarray(leaf)
+            for path, leaf in leaves}
 
 
 def save_checkpoint(out_dir: str, state: Dict[str, Any], iteration: int,
                     rolling_every: int = 50000) -> str:
-    """Write snapshot_latest.msgpack (+ rolling snapshot)."""
+    """Write snapshot_latest.npz (+ rolling snapshot)."""
     os.makedirs(out_dir, exist_ok=True)
-    payload = serialization.to_bytes(state)
-    latest = os.path.join(out_dir, "snapshot_latest.msgpack")
-    tmp = latest + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(payload)
-    os.replace(tmp, latest)
+    flat = flatten_state(state)
+    latest = os.path.join(out_dir, "snapshot_latest.npz")
     rolling = os.path.join(
-        out_dir, f"snapshot_{(iteration // rolling_every + 1) * rolling_every}.msgpack")
-    with open(rolling, "wb") as f:
-        f.write(payload)
+        out_dir, f"snapshot_{(iteration // rolling_every + 1) * rolling_every}.npz")
+    for path in (latest, rolling):
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+        os.replace(tmp, path)
     return latest
 
 
 def load_checkpoint(path: str, template: Dict[str, Any]) -> Dict[str, Any]:
-    """Load a snapshot into the shape of ``template`` (a matching pytree)."""
-    with open(path, "rb") as f:
-        return serialization.from_bytes(template, f.read())
+    """Load a snapshot into the structure of ``template`` (a matching
+    pytree). Every template leaf must be in the file, with its shape."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+    out = []
+    with np.load(path) as data:
+        for key_path, leaf in leaves:
+            key = "/".join(_key_name(k) for k in key_path)
+            if key not in data:
+                raise KeyError(f"{path}: no entry {key!r}")
+            arr = data[key]
+            if arr.shape != np.shape(leaf):
+                raise ValueError(f"{path}: {key!r} has shape {arr.shape}, "
+                                 f"expected {np.shape(leaf)}")
+            out.append(arr.astype(np.asarray(leaf).dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def latest_checkpoint(out_dir: str) -> Optional[str]:
-    p = os.path.join(out_dir, "snapshot_latest.msgpack")
+    p = os.path.join(out_dir, "snapshot_latest.npz")
     return p if os.path.exists(p) else None
 
 
@@ -171,7 +198,6 @@ def _map_one(path, gen_params):
     parts = list(path)
     kind = parts.pop(0)  # params | buffers
     if kind == "buffers":
-        # flax keeps buffers nested like params (nerf/canonical_pose)
         name = ".".join(parts)
         return name, "id"
     if parts and parts[0] == "nerf":

@@ -1,9 +1,9 @@
 """DSO (dynamic scene overfitting) training — jitted steps + driver.
 
-Re-designs reference train_DSO.py:173-333 TPU-first: one jitted train step
+Re-designs reference train_DSO.py:173-333: one jitted train step
 (forward render of a masked ray batch + photometric loss + Adam with
 per-step exponential LR decay), data sharded over the mesh's ``data`` axis,
-msgpack checkpoints, log.json metrics.
+npz checkpoints, log.json metrics.
 """
 from __future__ import annotations
 
@@ -39,20 +39,28 @@ def build_generator(config, num_bone: int, parent_id) -> DSONARFGenerator:
                             ray_batchsize=int(gp.ray_batchsize))
 
 
+def init_variables(gen: DSONARFGenerator, canonical_pose: np.ndarray,
+                   rng: jax.Array, sample_batch: Dict[str, np.ndarray]):
+    """Model variables with the canonical-pose buffers filled.
+
+    The variables do not depend on the batch size, so one compiled forward
+    of the first sample creates them.
+    """
+    one = {k: jnp.asarray(sample_batch[k])[:1] for k in (
+        "pose_3d", "camera_rotation", "mask", "frame_time", "bone_length",
+        "inv_intrinsics")}
+    variables = jax.jit(gen.init)(
+        rng, rng, one["pose_3d"], one["camera_rotation"], one["mask"],
+        one["frame_time"], one["bone_length"], one["inv_intrinsics"])
+    return register_canonical_pose(
+        variables, canonical_pose, gen.nerf_params.origin_location,
+        np.asarray(gen.parent_id))
+
+
 def init_state(config, gen: DSONARFGenerator, canonical_pose: np.ndarray,
                rng: jax.Array, sample_batch: Dict[str, np.ndarray]):
     """Init variables + optimizer (reference train_DSO.py:188-207)."""
-    variables = gen.init(
-        rng, rng,
-        jnp.asarray(sample_batch["pose_3d"]),
-        jnp.asarray(sample_batch["camera_rotation"]),
-        jnp.asarray(sample_batch["mask"]),
-        jnp.asarray(sample_batch["frame_time"]),
-        jnp.asarray(sample_batch["bone_length"]),
-        jnp.asarray(sample_batch["inv_intrinsics"]))
-    variables = register_canonical_pose(
-        variables, canonical_pose, gen.nerf_params.origin_location,
-        np.asarray(gen.parent_id))
+    variables = init_variables(gen, canonical_pose, rng, sample_batch)
     schedule = optax.exponential_decay(config.lr, transition_steps=1,
                                        decay_rate=config.scheduler_gamma) \
         if config.scheduler_gamma < 1 else config.lr
@@ -69,12 +77,9 @@ def make_train_step(gen: DSONARFGenerator, tx, loss_cfg, bg_color: float,
     """Jitted DSO step; ``n_accum`` > 1 scans micro-batches accumulating
     grads (reference train_ENARF_GAN.py:105-128's trick applied to DSO).
 
-    The point on TPU is MEMORY, not just batch size: the tilewin pack
-    builds ~325 MB of window tables *per batch sample* at 512² — packing
-    happens inside the generator apply, so with micro-batches the tables
-    for only ``bs / n_accum`` samples are ever live at once. This is what
-    fits the reference's 512² bs16 ZJU config on a 16 GB v5e
-    (PERF.md round 4: bs16 single-pass ResourceExhausts during init)."""
+    The point is memory: the sampling tables are packed per batch sample
+    inside the generator apply, so with micro-batches the tables for only
+    ``bs / n_accum`` samples are live at once."""
     loss_type = loss_cfg.nerf_loss_type
     color_coef = float(loss_cfg.color_coef)
     mask_coef = float(loss_cfg.mask_coef)
@@ -224,7 +229,7 @@ def train_loop(config, gen, datasets, loaders, canonical_pose,
     iteration = 0
     # resume
     if getattr(config, "resume", None) or getattr(config, "resume_latest", False):
-        path = os.path.join(out_dir, "snapshot_latest.msgpack") \
+        path = os.path.join(out_dir, "snapshot_latest.npz") \
             if config.resume_latest else config.resume
         if path and os.path.exists(path):
             template = {"iteration": 0, "gen": variables, "gen_opt": opt_state}
@@ -233,10 +238,8 @@ def train_loop(config, gen, datasets, loaders, canonical_pose,
             iteration = int(loaded["iteration"])
             # optimizer state deliberately not restored (reference parity)
 
-    from enarf_gan_tpu.utils.compile_retry import retrying_first_call
-    train_step = retrying_first_call(
-        make_train_step(gen, tx, config.loss, config.dataset.bg_color,
-                        n_accum=int(getattr(config, "n_accum_step", 1))))
+    train_step = make_train_step(gen, tx, config.loss, config.dataset.bg_color,
+                                 n_accum=int(getattr(config, "n_accum_step", 1)))
     num_iter = max_iterations or config.num_iter
     start = time.time()
     accum_time = 0.0

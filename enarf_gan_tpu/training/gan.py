@@ -1,6 +1,6 @@
 """ENARF-GAN adversarial training — jitted G/D/R1 steps + driver.
 
-Re-designs reference train_ENARF_GAN.py:102-297 TPU-first:
+Re-designs reference train_ENARF_GAN.py:102-297:
 
 * G step: gradient accumulation over ``n_accum_step`` micro-batches as a
   ``lax.scan`` inside one jit (reference python loop + repeated backward,
@@ -65,13 +65,14 @@ def init_gan_state(config, gen, dis, canonical_pose, rng, sample_batch):
     batchsize = config.dataset.bs
     z_dim = config.generator_params.z_dim
     rng, g_rng, d_rng, z_rng = jax.random.split(rng, 4)
-    z = jax.random.normal(z_rng, (sample_batch["pose_to_camera"].shape[0],
-                                  z_dim * 4))
-    gen_vars = gen.init(g_rng, g_rng,
-                        jnp.asarray(sample_batch["pose_to_camera"]),
-                        jnp.asarray(sample_batch["pose_to_world"]),
-                        jnp.asarray(sample_batch["bone_length"]), z,
-                        jnp.linalg.inv(jnp.asarray(sample_batch["intrinsics"])))
+    # the variables do not depend on the batch size: one compiled,
+    # unchunked forward of the first sample creates them
+    one = {k: jnp.asarray(sample_batch[k])[:1] for k in (
+        "pose_to_camera", "pose_to_world", "bone_length", "intrinsics")}
+    z = jax.random.normal(z_rng, (1, z_dim * 4))
+    gen_vars = jax.jit(gen.init)(g_rng, g_rng, one["pose_to_camera"],
+                                 one["pose_to_world"], one["bone_length"], z,
+                                 jnp.linalg.inv(one["intrinsics"]))
     gen_vars = register_canonical_pose(
         gen_vars, canonical_pose, gen.nerf_params.origin_location,
         np.asarray(gen.parent_id))
@@ -241,7 +242,7 @@ def train_loop(config, gen, dis, datasets, loaders, canonical_pose,
                                            init_rng, first_pose)
     iteration = 0
     if getattr(config, "resume", None) or getattr(config, "resume_latest", False):
-        path = os.path.join(out_dir, "snapshot_latest.msgpack") \
+        path = os.path.join(out_dir, "snapshot_latest.npz") \
             if config.resume_latest else config.resume
         if path and os.path.exists(path):
             template = {"iteration": 0, **state}
@@ -249,13 +250,13 @@ def train_loop(config, gen, dis, datasets, loaders, canonical_pose,
             iteration = int(loaded.pop("iteration"))
             state = loaded
 
-    from enarf_gan_tpu.utils.compile_retry import retrying_first_call
     g_step, d_step, r1_step = make_gan_steps(config, gen, dis, gen_tx, dis_tx)
-    g_step = retrying_first_call(g_step)
-    d_step = retrying_first_call(d_step)
-    r1_step = retrying_first_call(r1_step)
     num_iter = max_iterations or config.num_iter
     batchsize = config.dataset.bs
+    # reference cadences: losses printed every 10 iters, scalars logged
+    # every 100 (train_ENARF_GAN.py:241)
+    print_interval = int(config.get("print_interval", 10))
+    tensorboard_interval = int(config.get("tensorboard_interval", 100))
     start = time.time()
     history = []
     pending = []  # device-side metric dicts awaiting bulk host fetch
@@ -287,21 +288,23 @@ def train_loop(config, gen, dis, datasets, loaders, canonical_pose,
             state, r1_metrics = r1_step(state, real_img)
             metrics.update(r1_metrics)
         # keep metrics on device; a per-step float() fetch would serialize
-        # dispatch (one host round-trip per iteration). Flush every 10 iters
-        # — the reference's own telemetry cadence (train_ENARF_GAN.py:241).
+        # dispatch (one host round-trip per iteration). Flush at the print
+        # cadence.
         pending.append(metrics)
         iteration += 1
 
-        if iteration % 10 == 0 or iteration >= num_iter:
+        if (iteration % print_interval == 0
+                or iteration % tensorboard_interval == 0
+                or iteration >= num_iter):
             history.extend({k: float(v) for k, v in m.items()}
                            for m in jax.device_get(pending))
             pending.clear()
-            if verbose and iteration % 10 == 0:
+            if verbose and iteration % print_interval == 0:
                 print(f"{iteration} iter, "
                       f"{(time.time() - start) / iteration:.3f} s/iter, "
                       f"G {history[-1]['loss_gen']:.3f} "
                       f"D {history[-1]['adv_loss_dis']:.3f}")
-        if iteration % 100 == 0:
+        if iteration % tensorboard_interval == 0:
             for k, v in history[-1].items():
                 writer.scalar(iteration, v, k)
         if iteration == 10:

@@ -51,7 +51,7 @@ def device_memory_stats() -> Dict[str, Any]:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler trace around a block (TPU timeline in TensorBoard)."""
+    """jax.profiler trace around a block (device timeline in TensorBoard)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield

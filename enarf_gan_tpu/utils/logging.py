@@ -1,8 +1,8 @@
 """Observability: scalar metrics, PNG sample grids, command records, JSON logs.
 
-Mirrors reference libraries/train_utils.py:10-40 (tensorboardX `write`,
+Mirrors reference libraries/train_utils.py:10-40 (scalar `write`,
 `save_img` √B grid, `record_command`) and train_DSO.py's log.json.
-tensorboardX is used when importable, with a flat JSONL fallback.
+Scalars go to a flat ``metrics.jsonl`` (one JSON object per line).
 """
 from __future__ import annotations
 
@@ -16,28 +16,19 @@ import numpy as np
 
 
 class MetricsWriter:
-    """Scalar writer: tensorboardX when available + metrics.jsonl always."""
+    """Scalar writer: appends ``{"iter", name, "t"}`` lines to metrics.jsonl."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        try:
-            import tensorboardX
-            self._tbx = tensorboardX.SummaryWriter(log_dir)
-        except Exception:
-            self._tbx = None
 
     def scalar(self, iteration: int, value, name: str):
         value = float(np.asarray(value))
-        if self._tbx is not None:
-            self._tbx.add_scalar(f"metrics/{name}", value, iteration)
         self._jsonl.write(json.dumps({"iter": iteration, name: value,
                                       "t": time.time()}) + "\n")
         self._jsonl.flush()
 
     def close(self):
-        if self._tbx is not None:
-            self._tbx.close()
         self._jsonl.close()
 
 

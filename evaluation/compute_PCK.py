@@ -55,8 +55,8 @@ def interocular_distance(gt: np.ndarray, left_eye: int = 1, right_eye: int = 2):
 
 
 def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str,
                         default="configs/enarfgan_train/AIST/config.yml")

@@ -10,8 +10,8 @@ import numpy as np
 
 
 def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--surreal_path", type=str, default="data/surreal")
     parser.add_argument("--config", type=str,
@@ -52,7 +52,7 @@ def main():
                                      sample_batch)
     out_dir = os.path.join(config.out_root, "result", config.out)
     snap = ckpt.latest_checkpoint(out_dir) if args.iteration <= 0 else \
-        os.path.join(out_dir, f"snapshot_{args.iteration}.msgpack")
+        os.path.join(out_dir, f"snapshot_{args.iteration}.npz")
     assert snap and os.path.exists(snap), "pretrained model is not loading"
     state = ckpt.load_checkpoint(snap, {"iteration": 0, **state})
     gen_vars = state["gen"]

@@ -2,7 +2,7 @@
 
 The reference pipeline (evaluation/compute_PCK.py:82-93) uses an mmdet person
 detector + mmpose HRNet top-down model. These are torch models outside the
-TPU render stack; when the packages and checkpoints are installed this
+JAX render stack; when the packages and checkpoints are installed this
 adapter reproduces the reference protocol.
 """
 from __future__ import annotations

@@ -211,3 +211,33 @@ def test_selector_mlp_generator_maps_to_reference_name():
         b = jax.tree_util.tree_leaves(new_vars[coll])
         for x, y in zip(a, b):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_npz_snapshot_roundtrip(dso_gen, tmp_path):
+    """snapshot_latest.npz holds every leaf of {iteration, gen, gen_opt}
+    keyed by path; loading into a template restores them bit-exactly, and
+    a template leaf the file lacks is an error."""
+    import optax
+    from enarf_gan_tpu.training import checkpoint as ckpt
+    _, variables = dso_gen
+    tx = optax.apply_if_finite(optax.adam(1e-3), 100)
+    opt = tx.init(variables["params"])
+    state = {"iteration": 7, "gen": variables, "gen_opt": opt}
+    path = ckpt.save_checkpoint(str(tmp_path), state, 7)
+    assert path == ckpt.latest_checkpoint(str(tmp_path))
+    assert path.endswith("snapshot_latest.npz")
+    assert (tmp_path / "snapshot_50000.npz").exists()
+    with np.load(path) as data:
+        assert "gen/params/nerf/tri_plane" in data.files
+    loaded = ckpt.load_checkpoint(path, state)
+    assert int(loaded["iteration"]) == 7
+    assert (jax.tree_util.tree_structure(loaded)
+            == jax.tree_util.tree_structure(state))
+    for a, b in zip(jax.tree_util.tree_leaves(loaded),
+                    jax.tree_util.tree_leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    # a sub-tree loads on its own (the demos restore only "gen")
+    gen_only = ckpt.load_checkpoint(path, {"gen": variables})
+    assert set(gen_only) == {"gen"}
+    with pytest.raises(KeyError):
+        ckpt.load_checkpoint(path, {"gen": variables, "dis": {"w": 0.0}})

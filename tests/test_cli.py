@@ -91,7 +91,7 @@ def test_train_dso_cli(synth, tmp_path):
                              "--default_config", str(default),
                              "--iterations", "7"])
     out_dir = f"{tmp_path}/out/result/cli_dso"
-    assert os.path.exists(f"{out_dir}/snapshot_latest.msgpack")
+    assert os.path.exists(f"{out_dir}/snapshot_latest.npz")
     assert os.path.exists(f"{out_dir}/log.json")
     with open(f"{out_dir}/log.json") as f:
         log = json.load(f)

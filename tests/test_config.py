@@ -59,8 +59,8 @@ def test_reference_configs_load():
 
 
 def test_every_shipped_config_loads():
-    """All configs/ trees (incl. the *_tpu.yml variants) merge over their
-    family default and expose NARFParams-parseable nerf_params."""
+    """All configs/ trees merge over their family default and expose
+    NARFParams-parseable nerf_params."""
     import glob
     from enarf_gan_tpu.models.narf import NARFParams
     for family in ("DSO_train", "DSO_demo", "enarfgan_train", "enarfgan_demo"):
@@ -71,6 +71,3 @@ def test_every_shipped_config_loads():
             np_cfg = cfg.generator_params.nerf_params
             params = NARFParams.from_config(np_cfg)
             assert params.Nc > 0 and params.tri_plane_size > 0, path
-            if path.endswith("_tpu.yml"):
-                assert params.tile_patch == 4, path
-                assert params.plane_sample_dtype == "bfloat16", path

@@ -100,7 +100,7 @@ def test_dso_demo_cli(synth, sample_data, tmp_path):
                              "--default_config", str(default),
                              "--iterations", "3"])
     out_dir = f"{tmp_path}/out/result/demo_dso"
-    assert os.path.exists(f"{out_dir}/snapshot_latest.msgpack")
+    assert os.path.exists(f"{out_dir}/snapshot_latest.npz")
 
     run_cli("DSO_demo.py", ["--config", str(default),
                             "--default_config", str(default),
@@ -110,8 +110,8 @@ def test_dso_demo_cli(synth, sample_data, tmp_path):
 
 
 def test_dso_demo_cli_tiled(synth, sample_data, tmp_path):
-    """Same train->demo chain through the tilewin fast path (the *_tpu.yml
-    config family: plane_sample_dtype bfloat16 + tile_patch)."""
+    """Same train->demo chain through the tilewin fast path
+    (plane_sample_dtype bfloat16 + tile_patch)."""
     default = tmp_path / "default.yml"
     default.write_text(textwrap.dedent(f"""
         out_root: {tmp_path}/out

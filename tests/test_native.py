@@ -1,3 +1,5 @@
+import os
+
 import numpy as np
 
 from enarf_gan_tpu import native
@@ -25,3 +27,17 @@ def test_native_mask_and_gather(rng):
 def test_native_available():
     # g++ is baked into the image; the native path should be active
     assert native.available()
+
+
+def test_native_lib_named_by_source_content(tmp_path):
+    """A changed batcher.cpp maps to a new library name (so it is rebuilt);
+    an unchanged one to the same name (so it is not)."""
+    src = tmp_path / "batcher.cpp"
+    with open(native._SRC) as f:
+        text = f.read()
+    src.write_text(text)
+    first = native.lib_path(str(src))
+    assert native.lib_path(str(src)) == first
+    assert os.path.dirname(first) == str(tmp_path)
+    src.write_text(text + "\n// edited\n")
+    assert native.lib_path(str(src)) != first

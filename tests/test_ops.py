@@ -116,7 +116,7 @@ def test_weighted_feature_matches_reference_sparse_path(rng):
 
     ours = np.array(sample_weighted_feature(
         Fdim, jnp.array(feats), jnp.array(masked_pos), jnp.array(weight),
-        jnp.array(validity), use_pallas=False))
+        jnp.array(validity)))
     ref = torch_weighted_feature(Fdim, torch.tensor(feats), torch.tensor(masked_pos),
                                  torch.tensor(weight), torch.tensor(validity))
     np.testing.assert_allclose(ours, ref.numpy(), rtol=1e-3, atol=1e-4)
@@ -177,7 +177,7 @@ def test_topm_matches_dense_when_few_bones_valid(rng):
 
     dense = np.array(sample_weighted_feature(
         Fdim, jnp.array(feats), jnp.array(masked_pos), jnp.array(weight),
-        jnp.array(validity), use_pallas=False))
+        jnp.array(validity)))
     topm = np.array(sample_weighted_feature_topm(
         Fdim, jnp.array(feats), jnp.array(masked_pos), jnp.array(weight),
         jnp.array(validity), max_bones=3))
@@ -207,7 +207,7 @@ def test_candidate_path_matches_dense(rng):
         jnp.array(masked_pos), jnp.array(validity), mode="prod"))
     f_dense = np.array(sample_weighted_feature(
         Fdim, jnp.array(feat_planes), jnp.array(masked_pos),
-        jnp.array(w_dense), jnp.array(validity), use_pallas=False))
+        jnp.array(w_dense), jnp.array(validity)))
 
     cand_idx, cand_valid, cand_pos = select_candidate_bones(
         jnp.array(pos), jnp.array(validity), M)

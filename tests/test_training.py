@@ -99,7 +99,7 @@ def test_dso_overfit_smoke(synth_root, tmp_path):
     assert last < first, f"loss did not decrease: {first} -> {last}"
     # checkpoint written
     assert os.path.exists(os.path.join(config.out_root, "result", config.out,
-                                       "snapshot_latest.msgpack"))
+                                       "snapshot_latest.npz"))
 
 
 @pytest.mark.parametrize("tile_patch", [0, 4])

@@ -1,7 +1,8 @@
-"""Time the jitted GAN G/D/R1 steps on the real TPU chip.
+"""Time the jitted GAN G/D/R1 steps on one GPU.
 
-Reference-scale geometry per image (128² = 16384 rays, Nc48/Nf64), modest
-batch (bs 4, n_accum 2) to fit one v5e chip comfortably.
+Reference-scale geometry per image (128² = 16384 rays, Nc48/Nf64); batch,
+accumulation and sampler from GAN_* env knobs. Synthetic data and outputs
+go under ``<repo>/.bench_work``.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ import numpy as np
 
 
 def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import REPO_ROOT, require_gpu, setup_jax
+    setup_jax()
+    require_gpu()
     import jax
     import jax.numpy as jnp
     from enarf_gan_tpu.config import AttrDict
@@ -27,19 +29,19 @@ def main():
 
     bs = int(os.environ.get("GAN_BS", 4))
     size = int(os.environ.get("GAN_SIZE", 128))
-    root = f"/tmp/gan_bench_synth_{size}"
+    work = os.path.join(REPO_ROOT, ".bench_work")
+    root = os.path.join(work, f"gan_synth_{size}")
     if not os.path.exists(os.path.join(root, "cache.npz")):
         make_synthetic_human_cache(root, size=size, n_frames=max(bs, 4),
                                    n_camera=2)
     config = AttrDict({
-        "out_root": "/tmp/gan_bench_out", "out": "gan_bench",
+        "out_root": work, "out": "gan_bench",
         "dataset": {"bs": bs, "image_size": size,
                     "train": {"data_root": root}},
         "generator_params": {
             "z_dim": 256, "patch_size": 24, "background_ratio": 0.3,
             "use_triplane": True, "crop_background": True,
             "pretrained_background": False, "channel_max": 512,
-            # the shipped config_tpu.yml value is 2048 (GAN_RAY_CHUNK)
             "train_ray_chunk": int(os.environ.get("GAN_RAY_CHUNK", 4096)),
             "nerf_params": {
                 # GAN_PLANES/GAN_NC/GAN_NF shrink the graph for CPU smokes
@@ -80,18 +82,11 @@ def main():
     g_step, d_step, r1_step = gan.make_gan_steps(config, gen, dis, gen_tx,
                                                  dis_tx)
 
-    def fetch(x):
-        return np.asarray(jax.tree_util.tree_leaves(x)[0]).ravel()[:1]
-
     def timed(fn, *args, iters=3):
-        out = fn(*args)
-        fetch(out[-1])
+        out = jax.block_until_ready(fn(*args))
         t0 = time.perf_counter()
         for _ in range(iters):
-            # hard-sync EVERY iteration: queueing several un-fetched
-            # GAN-step-scale programs reproducibly crashes the remote TPU
-            # worker (round 3; re-reproduced round 5 with the tilewin step)
-            fetch(fn(*args)[-1])
+            jax.block_until_ready(fn(*args))
         return (time.perf_counter() - t0) / iters, out
 
     gb = {k: batch[k] for k in ("pose_to_camera", "pose_to_world",

@@ -1,4 +1,4 @@
-"""Production-shape benchmarks on the real TPU chip (VERDICT round-2 #3).
+"""Production-shape benchmarks on one GPU.
 
 Two workloads at the reference's shipped production scales:
 
@@ -10,7 +10,8 @@ Two workloads at the reference's shipped production scales:
   (configs/DSO_demo/NeuralActor/lan_denarf.yml:16, DSO_demo.py:23).
 
 Synthetic in-memory batches (the data pipeline is not under test).
-Prints one JSON line per workload with s/iter or s/frame and peak HBM.
+Prints one JSON line per workload with s/iter or s/frame and peak device
+memory. Every timed call ends in block_until_ready.
 
 Env: BENCH_WORKLOAD=dso512|demo1024|all, BENCH_BS, BENCH_ITERS,
 BENCH_TILED (tile_patch, default 4; 0 = exact per-member sampler).
@@ -94,7 +95,7 @@ def bench_dso512(tile_patch):
     t0 = time.perf_counter()
     variables, opt_state, metrics = step(variables, opt_state,
                                          jax.random.PRNGKey(1), batch)
-    _ = float(np.asarray(metrics["loss"]))  # hard host-fetch sync
+    jax.block_until_ready(metrics)
     compile_s = time.perf_counter() - t0
     print(f"# dso512 compile+first step: {compile_s:.1f}s", file=sys.stderr)
 
@@ -102,8 +103,9 @@ def bench_dso512(tile_patch):
     for i in range(iters):
         variables, opt_state, metrics = step(variables, opt_state,
                                              jax.random.PRNGKey(2 + i), batch)
-    loss = float(np.asarray(metrics["loss"]))
+    jax.block_until_ready((variables, metrics))
     dt = (time.perf_counter() - t0) / iters
+    loss = float(metrics["loss"])
     assert np.isfinite(loss), loss
     print(json.dumps({
         "metric": "dso512_train_s_per_iter", "value": round(dt, 4),
@@ -138,17 +140,17 @@ def bench_demo1024(tile_patch):
                                       with_camera_pose=False)
 
     t0 = time.perf_counter()
-    out = renderer(variables, jax.random.PRNGKey(1), pose_cam, inv_K, ft, bl)
-    _ = np.asarray(out[0]).ravel()[0]
+    out = jax.block_until_ready(
+        renderer(variables, jax.random.PRNGKey(1), pose_cam, inv_K, ft, bl))
     compile_s = time.perf_counter() - t0
     print(f"# demo1024 compile+first render: {compile_s:.1f}s",
           file=sys.stderr)
 
     t0 = time.perf_counter()
     for i in range(reps):
-        out = renderer(variables, jax.random.PRNGKey(2 + i), pose_cam, inv_K,
-                       ft, bl)
-        _ = np.asarray(out[0]).ravel()[0]
+        out = jax.block_until_ready(
+            renderer(variables, jax.random.PRNGKey(2 + i), pose_cam, inv_K,
+                     ft, bl))
     dt = (time.perf_counter() - t0) / reps
     assert np.isfinite(np.asarray(out[0])).all()
     print(json.dumps({
@@ -159,8 +161,9 @@ def bench_demo1024(tile_patch):
 
 
 def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+    from enarf_gan_tpu.utils.platform import require_gpu, setup_jax
+    setup_jax()
+    require_gpu()
     tile_patch = int(os.environ.get("BENCH_TILED", 4))
     which = os.environ.get("BENCH_WORKLOAD", "all")
     if which in ("dso512", "all"):

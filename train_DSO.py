@@ -38,9 +38,9 @@ def create_dataloader(config_dataset):
     return (dataset_train, datasets_val), (train_loader, val_loaders)
 
 
-def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+def main(argv=None):
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str,
                         default="configs/DSO_train/ZJU/313_denarf.yml")
@@ -51,7 +51,7 @@ def main():
     parser.add_argument("--validation", action="store_true")
     parser.add_argument("--iterations", type=int, default=None,
                         help="override num_iter (smoke runs)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     config = yaml_config(args.config, args.default_config, args.resume_latest,
                          args.num_workers)

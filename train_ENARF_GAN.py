@@ -31,9 +31,9 @@ def create_dataloader(config_dataset):
     return (img_dataset, pose_dataset), (loader_img, loader_pose)
 
 
-def main():
-    from enarf_gan_tpu.utils.platform import sync_platform_from_env
-    sync_platform_from_env()
+def main(argv=None):
+    from enarf_gan_tpu.utils.platform import setup_jax
+    setup_jax()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str,
                         default="configs/enarfgan_train/AIST/config.yml")
@@ -43,7 +43,7 @@ def main():
     parser.add_argument("--num_workers", type=int, default=1)
     parser.add_argument("--iterations", type=int, default=None,
                         help="override num_iter (smoke runs)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     config = yaml_config(args.config, args.default_config, args.resume_latest,
                          args.num_workers)
